@@ -1,12 +1,12 @@
-"""raw2film-tpu: a TPU-native (JAX/XLA/Pallas) analog-film emulation framework.
+"""raw2film-tpu: a JAX/XLA analog-film emulation framework.
 
 Re-implements the full capability surface of the reference desktop application
 (RAW decode -> linear CIE-XYZ -> spectral negative/print film chain -> film
 effects -> display RGB export) as a single functional, jit-compiled pixel
-pipeline designed for TPU hardware:
+pipeline for an accelerator (an NVIDIA GPU):
 
-- planar ``(3, H, W)`` float32 image layout (channel-minor layouts suffer a
-  ~42x TPU tile-padding blowup),
+- planar ``(3, H, W)`` float32 image layout (each channel a contiguous
+  plane, so 3x3 channel mixes are scalar mul-adds over planes),
 - LUT *construction* (the film science) on host NumPy, LUT *application* and
   all per-pixel work on device,
 - one pipeline serving both interactive preview and batch export (the

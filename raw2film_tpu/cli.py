@@ -1,7 +1,7 @@
 """Batch CLI: the framework's export entry point.
 
 The reference is GUI-only (console script launches Qt,
-reference: src/raw2film/__main__.py:15-31); the TPU framework's primary
+reference: src/raw2film/__main__.py:15-31); this framework's primary
 surface is this headless batch tool plus the Python API. Folder sidecar
 settings (raw2film_settings.json) are honored like the reference's.
 """
@@ -21,7 +21,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = argparse.ArgumentParser(
         prog="raw2film-tpu",
-        description="TPU-native analog film emulation: RAW -> film look -> JPEG/TIFF",
+        description="Analog film emulation on an accelerator: RAW -> film look -> JPEG/TIFF",
     )
     p.add_argument("inputs", nargs="*", help="RAW files or folders")
     p.add_argument("-o", "--output", default="export", help="output directory")
@@ -99,8 +99,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--coordinator", default=None,
         help="host:port of the jax.distributed coordinator — required when"
-        " the fleet shares one TPU pod (each host must join before using its"
-        " chips); omit for independent hosts",
+        " the fleet runs one multi-host JAX program (each host must join"
+        " before using its devices); omit for independent hosts",
     )
     p.add_argument("--trace", action="store_true", help="print per-stage timings")
     p.add_argument(
@@ -179,17 +179,6 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.trace:
         os.environ["RAW2FILM_TRACE"] = "1"
-
-    # Honor JAX_PLATFORMS even when a sitecustomize imported jax before us
-    # (import-time config capture would otherwise ignore the env var).
-    platforms = os.environ.get("JAX_PLATFORMS")
-    if platforms and "jax" in sys.modules:
-        import jax
-
-        try:
-            jax.config.update("jax_platforms", platforms)
-        except Exception:
-            pass
 
     from raw2film_tpu.film.loader import load_film_stocks
     from raw2film_tpu.pipeline.batch import BatchRunner, export_path, scan_raw_files
@@ -330,8 +319,8 @@ def main(argv: list[str] | None = None) -> int:
 
     if args.num_processes > 1 or args.coordinator:
         # Fleet export (docs/scaling.md Tier 2): slice the file list per
-        # process — RAW bytes never cross hosts; join the pod coordinator
-        # when the hosts share TPU chips.
+        # process — RAW bytes never cross hosts; join the coordinator when
+        # the hosts run one multi-host JAX program.
         from raw2film_tpu.parallel.distributed import init_process, my_file_slice
 
         if args.coordinator:

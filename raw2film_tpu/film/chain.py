@@ -2,11 +2,11 @@
 
 This module turns a (negative stock, print stock, user settings) triple into
 three small frozen parameter bundles of matrices/vectors/curve constants.
-Both the NumPy oracle (here) and the jitted TPU pipeline
+Both the NumPy oracle (here) and the jitted device pipeline
 (:mod:`raw2film_tpu.pipeline.render`) evaluate the *same* closed-form math
 from these bundles — the device path therefore needs no per-pixel LUT
-gathers at all (XLA gathers measured ~20 MP/s on v5e; this design keeps the
-hot chain elementwise + 3x3 matmuls at multi-GP/s).
+gathers at all: the hot chain stays elementwise + 3x3 channel mixes, which
+XLA fuses into a few passes over device memory.
 
 Stage order matches the reference pipeline spec
 (reference: src/raw2film/cpu_processor.py:269-414):

@@ -1,8 +1,8 @@
 """Fit the analytic film models to measured samples.
 
 The device pipeline evaluates analytic families (H&D softplus-bracket,
-4-parameter MTF) because elementwise math runs ~200x faster than gathers on
-TPU (see film/sensitometry.py). Measured data — datasheet scans, or curves
+4-parameter MTF) because elementwise math fuses into the chain's passes
+where per-pixel table gathers do not (see film/sensitometry.py). Measured data — datasheet scans, or curves
 sampled from the reference's ``spectral_film_lut`` stocks via
 ``film/import_sfl.py`` — therefore enters the framework by FITTING those
 families, not by tabulated lookup. This module owns the numpy-only fitters

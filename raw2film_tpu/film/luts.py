@@ -1,6 +1,6 @@
 """Tabulated-LUT builders: the reference's LUT API surface.
 
-The TPU hot path evaluates the chain in closed form
+The device hot path evaluates the chain in closed form
 (:mod:`raw2film_tpu.film.chain`), but the framework also exposes the
 reference's LUT-centric API for interop (`.cube` export, ICC post-bake,
 third-party LUT application, the generic device LUT ops):

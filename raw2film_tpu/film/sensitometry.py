@@ -17,9 +17,9 @@ where x is log10 relative exposure. Properties:
   (so ``Dmax = Dmin + gamma * (x_sh - x_toe)``).
 
 Being analytic and elementwise, the same curve evaluates on host (NumPy
-oracle) and on TPU (jnp, fused into the pipeline) with zero gathers — XLA
-gathers measured at ~20 MP/s on v5e vs ~4 GP/s elementwise, which is why
-tabulated-LUT interpolation is not the primary device path.
+oracle) and on the device (jnp, fused into the pipeline) with zero
+gathers, which is why tabulated-LUT interpolation is not the primary
+device path.
 """
 
 from __future__ import annotations

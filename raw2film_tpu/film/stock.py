@@ -18,7 +18,7 @@ Each stock is defined by small parametric ingredients:
   descriptive metadata.
 
 From these, host-side calibration derives the per-pixel *matrices* that the
-TPU pipeline actually runs (no per-pixel spectral integration on device):
+device pipeline actually runs (no per-pixel spectral integration on device):
 
 * ``exposure_matrix(white)``: camera XYZ -> layer exposures, least-squares
   fitted over a smooth reflectance training set under the scene illuminant,

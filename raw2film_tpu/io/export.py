@@ -16,7 +16,6 @@ import shutil
 import subprocess
 
 import numpy as np
-from PIL import Image
 
 from raw2film_tpu.data import METADATA_KEYS
 
@@ -101,8 +100,12 @@ _EXIF_TAG_IDS: dict[str, tuple[int, int]] = {
 # InteropIndex lives in the Interop sub-IFD which PIL does not serialize.
 
 
-def build_exif(metadata: dict, exp_comp: float | None = None) -> Image.Exif:
-    """Whitelisted EXIF dict -> PIL Exif object (EXIF/GPS sub-IFD routed)."""
+def build_exif(metadata: dict, exp_comp: float | None = None):
+    """Whitelisted EXIF dict -> PIL Exif object (EXIF/GPS sub-IFD routed).
+    Pillow is imported here, not at module load, so the rest of the package
+    (and every device path) imports on hosts without it."""
+    from PIL import Image
+
     exif = Image.Exif()
     ifds = {
         IFD_EXIF: exif.get_ifd(IFD_EXIF),
@@ -116,15 +119,12 @@ def build_exif(metadata: dict, exp_comp: float | None = None) -> Image.Exif:
         if dest is None:
             continue
         ifd, tag = dest
-        try:
-            if isinstance(value, list):
-                value = tuple(value)
-            if ifd == IFD0:
-                exif[tag] = value
-            else:
-                ifds[ifd][tag] = value
-        except Exception:
-            pass
+        if isinstance(value, list):
+            value = tuple(value)
+        if ifd == IFD0:
+            exif[tag] = value
+        else:
+            ifds[ifd][tag] = value
     if exp_comp is not None:
         ifds[IFD_EXIF][_EXIF_TAG_IDS["ExposureCompensation"][1]] = float(exp_comp)
     exif[_EXIF_TAG_IDS["Software"][1]] = "raw2film-tpu"
@@ -167,6 +167,8 @@ def save_image(
     use_exiftool: bool = True,
 ) -> None:
     """uint8 (H, W, 3) -> JPEG/TIFF/PNG by extension, EXIF attached."""
+    from PIL import Image
+
     os.makedirs(os.path.dirname(os.path.abspath(dst)), exist_ok=True)
     img = Image.fromarray(np.ascontiguousarray(image_hwc))
     ext = os.path.splitext(dst)[1].lower()

@@ -280,8 +280,8 @@ def lens_correction(
 
         native = remap_bilinear(np.asarray(out, np.float32), coords)
         if native is not None:
-            # Threaded C++ bilinear (~50x scipy at 24MP; a naive TPU gather
-            # measured SLOWER than scipy — see native/__init__.py).
+            # Threaded C++ bilinear (~50x scipy at 24MP on the host — see
+            # native/__init__.py).
             out = native.astype(np.float64)
         else:
             from scipy import ndimage

@@ -2,7 +2,7 @@
 
 Equivalent of the reference's ``raw_to_linear`` (LibRaw demosaic to 16-bit
 linear XYZ + auto exposure, reference: src/raw2film/raw_conversion.py:33-53),
-but TPU-first: the container parse stays on host
+but device-first: the container parse stays on host
 (:mod:`raw2film_tpu.io.dng`), demosaic / color matrix / exposure scaling run
 on device as convs + matmuls.
 """
@@ -105,7 +105,7 @@ def decode_raw(
             "ij,jhw->ihw",
             jnp.asarray(cam_to_xyz, jnp.float32),
             rgb,
-            precision=jax.lax.Precision.HIGHEST,  # MXU default is bf16-input
+            precision=jax.lax.Precision.HIGHEST,  # no TF32 input rounding
         )
     orient = int(raw.metadata.get("EXIF:Orientation", 1) or 1)
     if orient != 1:

@@ -763,9 +763,8 @@ void r2f_unpack_normalize(const uint8_t* src, long n_samples, int bits,
 
 // Threaded bilinear remap (clamp-to-edge): the lens-distortion resample.
 // Measured at 24MP x3 channels: scipy map_coordinates needs ~3.1 s
-// (single-thread float64) and a naive XLA:TPU gather ~4.2 s — scattered
-// gathers don't map to the TPU's tiled memory at all — so this stage
-// belongs on host, done properly: float32, threads over row blocks.
+// (single-thread float64), so this host stage is done properly here:
+// float32, threads over row blocks.
 // coords are (2, H, W): source y then source x per output pixel, shared
 // across channels (the radial map is channel-independent).
 void r2f_remap_bilinear(const float* src, int channels, int h, int w,

@@ -31,8 +31,7 @@ def _aligned_slice(mask: jnp.ndarray, factor: int, row_offset) -> tuple:
 
 def _lerp_rows_dynamic(h: int, hs: int, factor: int, q) -> jnp.ndarray:
     """(h, hs) half-pixel bilinear upsample weights whose cell grid starts at
-    traced local row ``q`` — the dynamic counterpart of
-    conv._lerp_matrix_full (same hat weights + edge clamp)."""
+    traced local row ``q`` (half-pixel hat weights + edge clamp)."""
     rel = (jnp.arange(h, dtype=jnp.float32) - q + 0.5) / factor - 0.5
     rel = jnp.clip(rel, 0.0, hs - 1.0)
     return jnp.maximum(
@@ -43,101 +42,14 @@ def _lerp_rows_dynamic(h: int, hs: int, factor: int, q) -> jnp.ndarray:
 def down_up_blur(
     mask: jnp.ndarray, burn_scale: float = 50.0, factor: int | None = None
 ) -> jnp.ndarray:
-    """(1, H, W) -> (1, H, W): area-downsample, sigma=3 trunc=2 blur, upsample.
-
-    On TPU the full-resolution ends run as dense selection matmuls on the
-    MXU (ops/conv.py::box_downsample_mxu / bilinear_upsample_mxu): XLA's
-    reduce_window + resize cost ~5.6 ms at 45MP with f~110 where the
-    bandwidth bound is ~0.5 ms.
-    """
+    """(1, H, W) -> (1, H, W): area-downsample (reduce_window), sigma=3
+    trunc=2 blur, bilinear upsample, edge-padded to the full frame."""
     h, w = mask.shape[-2:]
     if factor is None:
         factor = max(1, math.ceil(min(h, w) / burn_scale))
-    if convops._use_pallas() and factor > 8:
-        small = convops.box_downsample_mxu(mask, factor)
-        blurred = convops.gaussian_blur(small, 3.0, truncate=2.0)
-        oh, ow = small.shape[-2] * factor, small.shape[-1] * factor
-        up = convops.bilinear_upsample_mxu(blurred, factor, (oh, ow))
-        if (oh, ow) != (h, w):
-            up = jnp.pad(up, [(0, 0), (0, h - oh), (0, w - ow)], mode="edge")
-        return up
     small = convops.box_downsample(mask, factor)
     blurred = convops.gaussian_blur(small, 3.0, truncate=2.0)
     return convops.zoom_upsample(blurred, factor, (h, w))
-
-
-def burn_smallmap(
-    density: jnp.ndarray,
-    d_ref_green,
-    burn_scale: float = 50.0,
-    ref_hw: tuple | None = None,
-    row_offset=None,
-):
-    """The burn glow as (small blurred map, row/col bilinear matrices) so the
-    upsample + subtract can fuse into the print tail kernel: the full-res
-    glow never touches HBM (kernel computes up = rowmat @ small @ colmat per
-    tile on the MXU and subtracts in-register). Returns None when the
-    factor/shape can't be served (caller runs the staged burn()).
-
-    The matrices reproduce bilinear_upsample_mxu(..., f, (hs*f, ws*f))
-    followed by the edge pad to (H, W) exactly: rows/cols beyond the
-    upsampled extent repeat the last weight row (= mode="edge").
-
-    ``row_offset`` (traced ok) — global row index of local row 0 for a
-    row-sharded render: the downsample cells and the upsample weights are
-    then aligned to the GLOBAL grid, so every shard computes the same glow
-    map values for the same global cells and seams carry no one-cell
-    misalignment (parallel/mesh.py halo path). None = the single-device
-    static path (byte-identical to the pinned goldens).
-    """
-    import numpy as np
-
-    from raw2film_tpu.ops.conv import _lerp_matrix_full
-
-    h, w = density.shape[-2:]
-    rh, rw = ref_hw if ref_hw is not None else (h, w)
-    factor = max(1, math.ceil(min(int(rh), int(rw)) / burn_scale))
-    g = density[1:2]
-    mask = jnp.maximum(g - d_ref_green, 0.0)
-
-    if row_offset is not None and factor > 1:
-        # Guard BEFORE slicing: a shard shorter than factor-1 rows makes
-        # hs negative, and dynamic_slice_in_dim with a negative length
-        # errors at trace time rather than falling back to the staged path.
-        hs = (h - (factor - 1)) // factor
-        ws = w // factor
-        if factor <= 8 or hs <= 0 or ws == 0:
-            return None
-        sliced, q, hs = _aligned_slice(mask, factor, row_offset)
-        if (hs * h + ws * w) * 4 > 6 << 20:
-            return None
-        small = convops.gaussian_blur(
-            convops.box_downsample_mxu(sliced, factor), 3.0, truncate=2.0
-        )[0]
-        rm = _lerp_rows_dynamic(h, hs, factor, q)
-        cm = _lerp_matrix_full(ws, factor)
-        if cm.shape[0] < w:
-            cm = np.concatenate([cm, np.repeat(cm[-1:], w - cm.shape[0], 0)], 0)
-        cm = cm[:w].T
-        return small, rm, jnp.asarray(cm, jnp.float32)
-
-    hs, ws = h // factor, w // factor
-    if factor <= 8 or hs == 0 or ws == 0:
-        return None
-    if (hs * h + ws * w) * 4 > 6 << 20:  # matrices must fit the VMEM budget
-        return None
-    small = convops.gaussian_blur(
-        convops.box_downsample_mxu(mask, factor), 3.0, truncate=2.0
-    )[0]
-    rm = _lerp_matrix_full(hs, factor)
-    if rm.shape[0] < h:
-        rm = np.concatenate([rm, np.repeat(rm[-1:], h - rm.shape[0], 0)], 0)
-    rm = rm[:h]
-    cm = _lerp_matrix_full(ws, factor)
-    if cm.shape[0] < w:
-        cm = np.concatenate([cm, np.repeat(cm[-1:], w - cm.shape[0], 0)], 0)
-    cm = cm[:w].T
-    return small, jnp.asarray(rm, jnp.float32), jnp.asarray(cm, jnp.float32)
 
 
 def burn(
@@ -155,7 +67,9 @@ def burn(
     ``ref_hw`` overrides the dimensions the blur factor derives from —
     space-sharded renders pass the GLOBAL frame size so every shard uses
     the single-device factor; ``row_offset`` additionally aligns the
-    low-res grid to the global frame (see burn_smallmap).
+    low-res grid to the global frame, so every shard computes the same
+    glow values for the same global cells and seams carry no one-cell
+    misalignment (parallel/mesh.py halo path).
     """
     g = density[1:2]
     mask = jnp.maximum(g - d_ref_green, 0.0)
@@ -166,7 +80,7 @@ def burn(
         sliced, q, hs = _aligned_slice(mask, factor, row_offset)
         ws = max(w // factor, 1)
         small = convops.gaussian_blur(
-            convops.box_downsample_mxu(sliced, factor), 3.0, truncate=2.0
+            convops.box_downsample(sliced, factor), 3.0, truncate=2.0
         )
         rm = _lerp_rows_dynamic(h, hs, factor, q)
         cm = _lerp_rows_dynamic(w, ws, factor, jnp.zeros((), jnp.int32))

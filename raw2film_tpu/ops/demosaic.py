@@ -1,9 +1,10 @@
 """Bayer demosaic on device: Malvar-He-Cutler 5x5 linear demosaic.
 
 The reference delegates demosaic to LibRaw's PPG on the host
-(reference: src/raw2film/raw_conversion.py:36-48). TPU-first design moves it
-on-device as five fixed 5x5 convolutions + phase selects — pure conv/VPU
-work, no gathers, vectorizes over the whole frame (and batches under vmap).
+(reference: src/raw2film/raw_conversion.py:36-48). Here it runs on the
+device as four fixed 5x5 shift-add convolutions + phase selects — pure
+elementwise work that XLA fuses into one pass, no gathers, vectorized over
+the whole frame (and batched under vmap).
 Kernel coefficients are the published Malvar-He-Cutler (ICASSP 2004) ones.
 """
 
@@ -84,17 +85,6 @@ def demosaic_mhc(bayer: jnp.ndarray, pattern: str = "RGGB") -> jnp.ndarray:
     if pattern not in _PATTERNS:
         raise ValueError(f"unsupported Bayer pattern {pattern!r}")
     h, w = bayer.shape
-    from raw2film_tpu.ops.conv import _use_pallas
-
-    if _use_pallas():
-        # All four interpolants + phase selects in one streaming kernel
-        # (4 conv launches + a select pass cost ~2.3GB of HBM at 24MP).
-        from raw2film_tpu.ops.pallas_demosaic import demosaic_mhc_pallas
-
-        ry, rx = _PATTERNS[pattern]
-        out = demosaic_mhc_pallas(bayer, ry, rx)
-        if out is not None:
-            return out
     r_mask, grr, gbr, b_mask = _phase_masks(h, w, _PATTERNS[pattern])
 
     x = bayer[None]  # (1, H, W) single channel for conv
@@ -123,22 +113,12 @@ def demosaic_exposure(
     bayer: jnp.ndarray, pattern: str, mat
 ) -> jnp.ndarray:
     """max(mat @ clip01(demosaic_mhc(bayer)), 0): demosaic fused with the
-    chain's input transform. On the Pallas path the 3x3 runs as a kernel
-    epilogue so the intermediate RGB image never touches HBM (saves a
-    full-res XLA elementwise pass, ~1.1 GB at 45MP); the XLA fallback uses
-    the same exact-f32 scalar mul-adds as render._matp, so both paths match
-    the staged formulation to f32 ulps (FMA contraction only)."""
+    chain's input transform. The 3x3 runs as exact-f32 scalar mul-adds
+    (the same form as render._matp), so XLA fuses it into the demosaic's
+    elementwise pass and the intermediate RGB image never reaches device
+    memory; the result matches the staged formulation to f32 ulps (FMA
+    contraction only)."""
     mat = jnp.asarray(mat, jnp.float32)
-    if pattern in _PATTERNS:
-        from raw2film_tpu.ops.conv import _use_pallas
-
-        if _use_pallas():
-            from raw2film_tpu.ops.pallas_demosaic import demosaic_mhc_pallas
-
-            ry, rx = _PATTERNS[pattern]
-            out = demosaic_mhc_pallas(bayer, ry, rx, mat=mat)
-            if out is not None:
-                return out
     rgb = jnp.clip(demosaic_mhc(bayer, pattern), 0.0, 1.0)
     p = (rgb[0], rgb[1], rgb[2])
     return jnp.stack(
@@ -229,19 +209,8 @@ def half_size_decode(bayer: jnp.ndarray, pattern: str = "RGGB") -> jnp.ndarray:
         raise ValueError(f"unsupported Bayer pattern {pattern!r}")
     ry, rx = _PATTERNS[pattern]
     h2, w2 = bayer.shape[0] // 2, bayer.shape[1] // 2
-    from raw2film_tpu.ops.conv import _use_pallas
-
-    if _use_pallas():
-        # Stride-2 slices on the lane dim relayout catastrophically on TPU
-        # (measured 587ms at 45MP); polyphase selection as banded matmuls
-        # runs at bandwidth speed.
-        from raw2film_tpu.ops.pallas_pyramid import half_size_decode_pallas
-
-        out = half_size_decode_pallas(bayer, ry, rx)
-        if out is not None:
-            return out
     x = bayer[: h2 * 2, : w2 * 2]
-    # Strided slices (not a block reshape: tiny minor dims tile-pad ~32x).
+    # Strided slices of one operand fuse into a single loop.
     r = x[ry::2, rx::2]
     b = x[1 - ry :: 2, 1 - rx :: 2]
     g = 0.5 * (x[ry::2, 1 - rx :: 2] + x[1 - ry :: 2, rx::2])

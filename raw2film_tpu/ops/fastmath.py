@@ -1,18 +1,14 @@
 """exp2/log2 formulations of the chain's transcendental ops.
 
-The TPU VPU's native transcendental path is base-2: `jnp.power` lowers to a
-general powf routine while `exp2`/`log2` hit the direct hardware sequence.
-Measured on v5e at 45MP (benchmarks/tail_variants.py, 8x-amplified FIFO
-timing): the print tail with every `jnp.power`/`exp`/`log1p` rewritten in
-exp2/log2 form runs 7.74 ms vs 8.90 ms for the straight forms — and
-partial rewrites don't help, so the win needs ALL pow calls out of the
-kernel. Each helper is mathematically identical to the straight form
-(exact constant folds, not approximations); f32 results differ only in
-final ulps (<=1 u8 code through the chain).
+`jnp.power` lowers to a general powf routine, while `exp2`/`log2` map to
+the hardware's base-2 transcendental sequences. Each helper is
+mathematically identical to the straight form (exact constant folds, not
+approximations); f32 results differ only in final ulps (<=1 u8 code
+through the chain). Whether the base-2 forms are faster on the GPU has
+not been measured.
 
-Used by the device paths (Pallas kernels AND the XLA planes formulation)
-so pallas-vs-XLA comparison tests stay within their existing tolerances;
-the f64 host oracle (film/chain.py) keeps the straight forms.
+Used by the device chain (pipeline/render.py, ops/grain.py); the f64 host
+oracle (film/chain.py) keeps the straight forms.
 """
 
 from __future__ import annotations

@@ -6,9 +6,8 @@ color factors, normalized so the image mean is preserved:
 ``out = (img + f_c * blur(img)) / (1 + f_c)``
 (reference: src/raw2film/effects.py:200-287).
 
-TPU design: the kernel radius grows with export scale (>100 px at 400 px/mm),
-so a dense conv is bandwidth-hopeless and even FFT costs ~90 ms at 45 MP.
-Instead the exact kernel is fitted (host, least-squares on radial profiles)
+Design: the kernel radius grows with export scale (>100 px at 400 px/mm),
+so a dense conv costs O(r^2) per pixel. Instead the exact kernel is fitted (host, least-squares on radial profiles)
 with a small sum of isotropic Gaussians; each Gaussian is applied as a
 separable conv — wide ones on a box-downsampled pyramid level, which is
 accurate because a >30 px Gaussian has no content above the Nyquist of a
@@ -92,62 +91,24 @@ def fit_gaussian_mixture(size: float, n_terms: int = 5):
 PYRAMID_SIGMA = 8.0  # sigmas above this run on a decimated level
 
 
-def _gaussian_pyramid_blur(img: jnp.ndarray, sigma: float) -> jnp.ndarray:
-    """Isotropic Gaussian via separable conv; larger sigmas run on a
-    box-downsampled level and bilinear-upsample back (standard fast-glow).
-    A sigma > 2.5 Gaussian has negligible content above the Nyquist of a
-    2x-decimated grid, so each tier is accurate to <1% of the term's mass."""
-    if sigma <= PYRAMID_SIGMA:
-        return convops.gaussian_blur(img, sigma, truncate=3.0)
-    factor = 4 if sigma <= 48.0 else 8
+def _pyramid_factor(sigma: float) -> int:
+    """Decimation of the pyramid level a Gaussian of ``sigma`` runs on."""
+    return 4 if sigma <= 48.0 else 8
+
+
+def _pyramid_blur(img: jnp.ndarray, factor: int, terms) -> jnp.ndarray:
+    """sum_i w_i * Gaussian(sigma_i) for the (sigma, w) ``terms`` of one
+    decimation factor: ONE box-downsampled level shared by the terms, the
+    weighted blurs summed there, ONE bilinear upsample back (standard
+    fast-glow; linear, so equal to upsampling each term). A sigma > 2.5
+    Gaussian has negligible content above the Nyquist of a 2x-decimated
+    grid, so each tier is accurate to <1% of the term's mass."""
     small = convops.box_downsample(img, factor)
-    blurred = convops.gaussian_blur(small, sigma / factor, truncate=3.0)
-    return convops.bilinear_upsample(blurred, img.shape[-2:])
-
-
-@lru_cache(maxsize=32)
-def _full_res_ranks(size: float):
-    """Host: separable rank terms for the full-res part of the mixture tier
-    (inner correction + sub-pyramid Gaussians COMBINED into one 2D kernel and
-    SVD-factored — one fewer rank than factoring them independently), plus
-    the pyramid (sigma, weight) terms grouped by decimation factor.
-
-    Returns (us, vs, by_factor) with us/vs tuples of 1-D tap tuples.
-    """
-    sigmas, weights, inner, _ = fit_gaussian_mixture(size)
-    full, by_factor = [], {}
-    for s, w in zip(sigmas, weights):
-        if w <= 1e-6:
-            continue
-        if s <= PYRAMID_SIGMA:
-            full.append((s, w))
-        else:
-            by_factor.setdefault(4 if s <= 48.0 else 8, []).append((s, w))
-    rad = INNER_RADIUS
-    for s, _ in full:
-        rad = max(rad, int(3.0 * s + 0.5))
-    n = 2 * rad + 1
-    comb = np.zeros((n, n), np.float64)
-    ir = inner.shape[0] // 2
-    comb[rad - ir : rad + ir + 1, rad - ir : rad + ir + 1] += inner
-    for s, w in full:
-        g = convops.gaussian_kernel1d(s, truncate=3.0).astype(np.float64)
-        r1 = len(g) // 2
-        comb[rad - r1 : rad + r1 + 1, rad - r1 : rad + r1 + 1] += w * np.outer(g, g)
-    u, v = convops.svd_separable(comb, tol=3e-3, max_rank=5)
-    us = tuple(tuple(float(t) for t in r_) for r_ in u)
-    vs = tuple(tuple(float(t) for t in r_) for r_ in v)
-    return us, vs, by_factor
-
-
-def _pyramid_small_blur(img: jnp.ndarray, f: int, terms) -> jnp.ndarray:
-    """Decimate by ``f`` and apply the pyramid Gaussian terms (fused ranks)."""
-    from raw2film_tpu.ops import pallas_conv2, pallas_pyramid
-
-    small = pallas_pyramid.box_downsample_pallas(img, f)
-    su = [w * convops.gaussian_kernel1d(s / f, truncate=3.0) for s, w in terms]
-    sv = [convops.gaussian_kernel1d(s / f, truncate=3.0) for s, _ in terms]
-    return pallas_conv2.fused_sep_rank_mxu(small, su, sv)
+    acc = None
+    for s, w in terms:
+        term = w * convops.gaussian_blur(small, s / factor, truncate=3.0)
+        acc = term if acc is None else acc + term
+    return convops.bilinear_upsample(acc, img.shape[-2:])
 
 
 def halation_blur(
@@ -164,64 +125,19 @@ def halation_blur(
             exponential_blur_kernel(size).astype(np.float32), tol=1e-4, max_rank=8
         )
         return convops.conv2d_svd(img, u, v)
-    if convops._use_pallas():
-        from raw2film_tpu.ops import pallas_conv2, pallas_pyramid
-
-        us, vs, by_factor = _full_res_ranks(size)
-        blur = pallas_conv2.fused_sep_rank_mxu(img, list(us), list(vs))
-        for f, terms in by_factor.items():
-            small_blur = _pyramid_small_blur(img, f, terms)
-            blur = blur + pallas_pyramid.bilinear_upsample_pallas(
-                small_blur, f, img.shape[-2:]
-            )
-        return blur
     sigmas, weights, inner, _ = fit_gaussian_mixture(size)
     blur = convops.depthwise_conv2d(img, inner)
+    by_factor: dict = {}
     for s, w in zip(sigmas, weights):
         if w <= 1e-6:
             continue
-        blur = blur + w * _gaussian_pyramid_blur(img, s)
+        if s <= PYRAMID_SIGMA:
+            blur = blur + w * convops.gaussian_blur(img, s, truncate=3.0)
+        else:
+            by_factor.setdefault(_pyramid_factor(s), []).append((s, w))
+    for factor, terms in by_factor.items():
+        blur = blur + _pyramid_blur(img, factor, terms)
     return blur
-
-
-def halation_combined_fused(
-    img: jnp.ndarray,
-    scale: float,
-    halation_size: float,
-    factors: jnp.ndarray,
-    interpret: bool = False,
-    develop: jnp.ndarray | None = None,
-    conservative: bool = False,
-) -> jnp.ndarray | None:
-    """The whole halation stage — full-res ranks + /4 pyramid upsample +
-    per-channel combine — in ONE streaming pallas kernel
-    (ops/pallas_halation.py). ``factors``: traced (3,) color factors.
-    ``develop``: optional f32[19] H&D vector (see halation_mega) to also
-    develop to density in-kernel (identity-masking fast path).
-    ``conservative``: proven-safe tile budget (see halation_mega).
-
-    Returns None when the mixture tier doesn't apply or the shape can't be
-    served; the caller falls back to halation_blur + elementwise combine.
-    """
-    size = scale / 4.0 * halation_size
-    if size <= 40.0 or not convops._use_pallas():
-        return None
-    h, w = img.shape[-2:]
-    if h % 4 or w % 4:
-        return None
-    us, vs, by_factor = _full_res_ranks(size)
-    if list(by_factor) != [4]:
-        return None  # mega kernel serves the /4-only pyramid (all real scales)
-    from raw2film_tpu.ops import pallas_halation, pallas_pyramid
-
-    small_blur = _pyramid_small_blur(img, 4, by_factor[4])
-    small_rows_up = pallas_pyramid.bilinear_upsample_rows_pallas(
-        small_blur, 4, oh=h, interpret=interpret
-    )
-    return pallas_halation.halation_mega(
-        img, list(us), list(vs), small_rows_up, factors,
-        interpret=interpret, develop=develop, conservative=conservative,
-    )
 
 
 def halation_with_factors(

@@ -3,7 +3,7 @@
 Reference: 256-bin counts -> log1p normalize -> 3-tap smooth -> render to an
 RGBA strip via a precomputed 2x2x2 additive mix table (reference:
 src/raw2film/utils.py:93-223, shaders/histogram.wgsl). The counting runs on
-device without scatters: bincount as ones @ one-hot, an MXU matmul.
+device without scatters: bincount as a sum over a one-hot comparison.
 """
 
 from __future__ import annotations

@@ -11,16 +11,17 @@ closed-form chain. Three families:
 * :func:`apply_lut_3d_tetrahedral` — classic 6-case tetrahedral interpolation
   (semantics of reference src/raw2film/utils.py:247-380).
 
-TPU note: XLA lowers per-pixel gathers at ~10-20 MP/s on v5e, so the exact
-paths are for small images / validation. For production-size application of
-*smooth* LUTs use :func:`fit_lut3d_cp` + :func:`apply_lut_3d_cp`: a host-side
-CP (canonical polyadic) factorization turns the 3D lookup into three 1D
-basis interpolations + elementwise products — gather-free, matmul/VPU bound.
+The exact paths gather eight LUT entries per pixel and are meant for small
+images / validation. For production-size application of *smooth* LUTs use
+:func:`fit_lut3d_cp` + :func:`apply_lut_3d_cp`: a host-side CP (canonical
+polyadic) factorization turns the 3D lookup into three 1D basis
+interpolations + elementwise products over small tables.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 
@@ -95,9 +96,9 @@ def apply_curve_1d(
 def apply_curve_1d_onehot(
     img: jnp.ndarray, x_min: float, x_max: float, table: jnp.ndarray
 ) -> jnp.ndarray:
-    """Gather-free variant: linear interp as a one-hot matmul (MXU path).
-    Same semantics as :func:`apply_curve_1d`; preferable on TPU for large
-    images when the table is small (<= 512 entries)."""
+    """Gather-free variant: linear interp as a one-hot matmul. Same
+    semantics as :func:`apply_curve_1d` (HIGHEST precision: the table
+    values must not be rounded to TF32)."""
     n = table.shape[1]
     pos = jnp.clip((img - x_min) / (x_max - x_min), 0.0, 1.0) * (n - 1)
     i0 = jnp.clip(jnp.floor(pos), 0, n - 2)
@@ -110,7 +111,11 @@ def apply_curve_1d_onehot(
             (p == iota) * (1.0 - f[c].reshape(-1, 1))
             + ((p + 1) == iota) * f[c].reshape(-1, 1)
         ).astype(img.dtype)
-        outs.append((w @ table[c]).reshape(img.shape[1:]))
+        outs.append(
+            jnp.matmul(w, table[c], precision=jax.lax.Precision.HIGHEST).reshape(
+                img.shape[1:]
+            )
+        )
     return jnp.stack(outs)
 
 

@@ -116,16 +116,8 @@ def film_sharpness_from_key(
     sharpening_strength: float = 0.0,
     sharpening_sigma: float = 1.0,
     signed: bool = False,
-    conservative: bool = False,
-    fusion: bool = True,
 ) -> jnp.ndarray:
-    """Same, taking the pre-hashed MTF tabulation (jit-static friendly).
-
-    ``conservative``/``fusion`` mirror the VMEM-ladder rungs the fused
-    MTF+grain kernel honors (render.py): rung 1 re-tiles to the long-proven
-    (32, 512), rung 2 skips the Pallas kernel for the XLA SVD conv — so a
-    Mosaic VMEM failure in the standalone (grain-off) kernel is recoverable
-    instead of failing identically three times."""
+    """Same, taking the pre-hashed MTF tabulation (jit-static friendly)."""
     k = mtf_kernel(
         mtf_key, float(scale), float(sharpening_strength),
         float(sharpening_sigma), signed=signed,
@@ -133,105 +125,4 @@ def film_sharpness_from_key(
     if k.shape[-1] <= 15:
         return convops.depthwise_conv2d(img, k)
     u3, v3 = _svd_stack(k, tol=2e-3, max_rank=4)
-    if convops._use_pallas() and fusion:
-        # Same measured tile ladder as the MTF+grain mega kernel (the
-        # grain-less program needs strictly less VMEM): standalone MTF at
-        # (96, 256) runs 7.7-8.2 ms vs 8.8-10.6 for the generic auto tile
-        # at 45MP on v5e — this is what made grain-off configs slower than
-        # the fused MTF+grain pair (round-4 stage breakdowns' negative
-        # grain marginal).
-        from raw2film_tpu.ops import pallas_conv2
-
-        tile, chunk = _grain_mega_tile(
-            img.shape[-2], img.shape[-1], u3.shape[1],
-            u3.shape[2] // 2, v3.shape[2] // 2,
-            conservative=conservative,
-        )
-        out = pallas_conv2.fused_sep_rank_mxu(
-            img, u3, v3, precision="dc", tile_h=tile, chunk=chunk
-        )
-        if out is not None:
-            return out
     return convops.conv2d_svd(img, u3, v3)
-
-
-def _grain_vmem_ok(th, w, chunk, nr, rh, rw, budget=17_000_000):
-    """Scoped-VMEM estimate for a (th, chunk) MTF+grain mega-kernel config
-    (pallas_conv2.fused_sep_rank_mxu with the grain epilogue): grid-mapped
-    arrays double-buffered, constant bands + scratch single, plus the grain
-    hash/noise temporaries. Calibrated against v5e measurements at 45MP
-    (W=8208, per-channel rank 4, rh=rw=13): (96, 256) estimates 16.6M,
-    compiles, and is the fastest variant (5.7 vs 14.5 ms for the shipped
-    (32, 512)); the default budget 17M sits just above it. NOT in the model:
-    whatever pushed the historical (48, 512) configuration to a 19.06M
-    Mosaic OOM (estimate here 13.3M) — so (48, 512) stays excluded from the
-    candidate ladder and wide chunks are only used at tile 32."""
-    cur_out = 2 * th * w * 4 * 2
-    halos = 2 * max(rh, 1) * w * 4 * 2
-    bands = nr * (chunk + 2 * rw) * chunk * 4
-    colband = nr * th * (th + 2 * rh) * 4
-    win = (th + 2 * rh) * (chunk + 2 * rw) * 4
-    tmp = nr * th * (chunk + 2 * rw) * 4
-    grain_tmp = 4 * th * chunk * 4
-    return cur_out + halos + bands + colband + win + tmp + grain_tmp <= budget
-
-
-def _grain_mega_tile(h, w, nr, rh, rw, conservative=False):
-    """(tile_h, chunk) for the MTF+grain mega-kernel.
-
-    Measured ladder on a v5e at 45MP (benchmarks/mtf_sweep.py, colmerge on):
-    (96,256) 5.68 ms · (72,256) 7.15 ms · (48,512) excluded (historical
-    19.06M OOM) · (48,256) 12.6 ms · (32,512) 14.5 ms. Tall tiles win on MXU
-    row utilization exactly as in the halation mega-kernel; the VMEM gate
-    keeps unmeasured (tile, W) combinations from compiling at the cliff.
-    The ``conservative`` rung pins the long-proven (32, 512) so a
-    downgrade-ladder recompile is a genuinely smaller program."""
-    if conservative:
-        return 32, 512
-    for t, c in ((96, 256), (72, 256), (64, 256), (56, 256), (48, 256), (40, 512)):
-        if h % t == 0 and h > 2 * t + 1 and _grain_vmem_ok(t, w, c, nr, rh, rw):
-            return t, c
-    return 32, 512
-
-
-def film_sharpness_grain_from_key(
-    img: jnp.ndarray,
-    mtf_key: tuple,
-    scale: float,
-    sharpening_strength: float,
-    sharpening_sigma: float,
-    grain_seed,
-    grain_sigma_px: float,
-    grain_prm,
-    interpret: bool = False,
-    conservative: bool = False,
-    signed: bool = False,
-) -> jnp.ndarray | None:
-    """MTF sharpness with the film-grain apply fused as an in-kernel epilogue
-    (the density never returns to HBM between the two stages). Returns None
-    when the Pallas path can't serve the shape — the caller then runs the
-    stages separately. On the Pallas platforms where it dispatches, this
-    equals film_sharpness_from_key -> grain_apply_pallas bit-for-bit: the
-    grain field is positionally stateless, and both paths factor small
-    (k<=15) kernels through the same tol=1e-4/rank-6 SVD that
-    depthwise_conv2d uses on TPU (zero-padded common-rank terms add exact
-    zeros).
-    """
-    from raw2film_tpu.ops import pallas_conv2
-
-    k = mtf_kernel(
-        mtf_key, float(scale), float(sharpening_strength),
-        float(sharpening_sigma), signed=signed,
-    )
-    tol, max_rank = (1e-4, 6) if k.shape[-1] <= 15 else (2e-3, 4)
-    u3, v3 = _svd_stack(k, tol=tol, max_rank=max_rank)
-    h, w = img.shape[-2:]
-    tile, chunk = _grain_mega_tile(
-        h, w, u3.shape[1], u3.shape[2] // 2, v3.shape[2] // 2,
-        conservative=conservative,
-    )
-    return pallas_conv2.fused_sep_rank_mxu(
-        img, u3, v3, precision="dc", tile_h=tile, chunk=chunk,
-        grain=(grain_seed, grain_prm, float(grain_sigma_px)),
-        interpret=interpret,
-    )

@@ -7,7 +7,7 @@ network), and one ``sharded_batch_render`` call renders the global batch
 over all processes' devices — collective-free on the batch axis, so DCN
 carries nothing during compute.
 
-On a real pod this runs over ICI/DCN; in CI it is validated end to end
+Across hosts this runs over the cluster network; in CI it is validated end to end
 with two localhost processes over the CPU collectives backend
 (tests/test_distributed.py) — the process boundary, coordinator handshake,
 global-array assembly, and per-process output scatter are identical.

@@ -79,14 +79,6 @@ class RenderConfig:
     # tracks the tabulated datasheet curve (ops/mtf.py::mtf_kernel_layer).
     # Off by default — the goldens pin reference-parity output.
     icc: bool = False  # bundle carries a CP-factored ICC output LUT
-    mask_identity: bool = True  # color_masking == 1.0 (or BW): mask is I,
-    # development is per-channel and may fuse into the halation kernel
-    fusion: bool = True  # False: skip the mega-kernels (Mosaic scoped-VMEM
-    # accounting varies at the margin; Processor retries with fusion off)
-    conservative_tiles: bool = False  # True: cap the mega-kernels' row-band
-    # tiles at the proven-safe sizes (halation 48, MTF 32) instead of the
-    # faster large-M tiles that sit nearer the scoped-VMEM ceiling. First
-    # rung of the Processor's downgrade ladder — far cheaper than fusion off.
     quantize: bool = True  # False: return the encoded float image instead
     # of uint8 — the fidelity gates compare in float, where a rounding
     # boundary can't alias f32-vs-f64 epsilon into a full 8-bit code
@@ -139,9 +131,7 @@ def make_film_bundle(
 # ---------------------------------------------------------------- pieces
 
 
-# exp2/log2 transcendental forms, shared with the Pallas kernels so the
-# staged XLA formulation and the fused kernels stay expression-identical
-# (ops/fastmath.py documents the measured ~15% VPU win).
+# exp2/log2 transcendental forms (ops/fastmath.py).
 _softplus = fm.softplus
 
 
@@ -153,18 +143,18 @@ def _hd_density(log_e, curve):
 
 
 def _mat(m, img):
-    # HIGHEST precision: the TPU MXU's default rounds f32 inputs to bf16
-    # (measured: up to 5 8-bit codes of error through the chain). These
-    # 3x3 matmuls are bandwidth-bound, so exact f32 costs nothing.
+    # HIGHEST precision: a default-precision f32 matmul may round its
+    # inputs (TF32 keeps 10 mantissa bits — several 8-bit codes through the
+    # chain). These 3x3 matmuls are bandwidth-bound, so exact f32 is free.
     return jnp.einsum(
         "ij,jhw->ihw", m, img, precision=jax.lax.Precision.HIGHEST
     )
 
 
 # Channels travel as a TUPLE of (H, W) planes through the elementwise
-# sections: a 3x3 matmul then lowers to fused scalar mul-adds on the VPU
-# (exact f32) instead of an einsum node that breaks XLA fusion into its own
-# HBM round trip — measured 26.4 -> 7.7 ms for the bare chain at 45MP.
+# sections: a 3x3 matmul then lowers to fused scalar mul-adds (exact f32)
+# instead of an einsum node that breaks XLA fusion into its own round trip
+# through device memory.
 # Stacking back to (3, H, W) happens only at conv-kernel boundaries.
 
 
@@ -190,6 +180,91 @@ def _planes(img):
 # ---------------------------------------------------------------- chain
 
 
+def exposure_stage(xyz: Array, bundle: dict, cfg: RenderConfig) -> tuple:
+    """[chroma NR] -> input transform: WB CAT + layer exposure matrix
+    (+2^exp_comp folded in) -> planes of linear layer exposure."""
+    img = xyz
+    if cfg.chroma_nr:
+        img = nr_ops.chroma_nr(img, cfg.chroma_nr)
+    return tuple(jnp.maximum(q, 0.0) for q in _matp(bundle["m_in"], _planes(img)))
+
+
+def halation_stage(ep: tuple, bundle: dict, cfg: RenderConfig) -> tuple:
+    """Blur on the stacked image; the normalize-combine runs in planes so it
+    fuses into the develop stage's elementwise pass."""
+    g = bundle["hal_green"]
+    factors = bundle["hal_intensity"] * (
+        jnp.stack([jnp.ones_like(g), g, jnp.zeros_like(g)])
+        if not cfg.bw
+        else jnp.stack([g, g, g])
+    )
+    blur = hal_ops.halation_blur(jnp.stack(ep), cfg.scale, cfg.halation_size)
+    return tuple(
+        (ep[c] + factors[c] * blur[c]) / (1.0 + factors[c]) for c in range(3)
+    )
+
+
+def develop_stage(ep: tuple, bundle: dict) -> Array:
+    """Log exposure -> status densities (+ masking coupling), (3, H, W)."""
+    xp = tuple(
+        fm.log10(jnp.maximum(ep[c] + bundle["flare"], LOG10_EPS))
+        for c in range(3)
+    )
+    dm = jnp.reshape(bundle["d_min"], (3, -1))
+    dp = tuple(
+        _hd_plane(xp[c], bundle["neg_curve"], c) - dm[c, 0] for c in range(3)
+    )
+    dp = tuple(q + dm[c, 0] for c, q in enumerate(_matp(bundle["mask"], dp)))
+    return jnp.stack(dp)
+
+
+def sharpness_stage(d: Array, cfg: RenderConfig) -> Array:
+    return mtf_ops.film_sharpness_from_key(
+        d, cfg.mtf_key, cfg.scale, cfg.sharpening_strength,
+        cfg.sharpening_sigma, signed=cfg.mtf_signed,
+    )
+
+
+def grain_stage(
+    d: Array, bundle: dict, cfg: RenderConfig, noise_key: Array, row_offset=0
+) -> Array:
+    """density + amplitude(density) * hash grain field, clipped at 0."""
+    peak, width, floor, d_lo, d_hi = (bundle["grain_shape"][i] for i in range(5))
+    rng = jnp.maximum(d_hi - d_lo, 1e-3)
+    pixel_um = 1000.0 / cfg.scale
+    rms_eff = (bundle["grain_rms"] / 1000.0) * (48.0 / pixel_um)
+    field = grain_ops.generate_grain_field(
+        noise_key,
+        d.shape[-2:],
+        cfg.scale,
+        cfg.grain_size_mm,
+        cfg.grain_sigma,
+        bw=cfg.grain == 1,
+        row_offset=row_offset,
+    )
+    # KEEP IN SYNC: this amplitude curve also lives in
+    # ops/grain.py::grain_amplitude_device (scale-unfolded form); both are
+    # pinned against the float64 oracle, so a lone edit here fails those
+    # pins rather than desyncing silently.
+    t = (d - d_lo) / rng
+    shape = floor + (1 - floor) * fm.expe(
+        -0.5 * ((t - peak / rng * 0.5 - 0.25) / (width * 0.35)) ** 2
+    )
+    amp = rms_eff * shape
+    if cfg.grain == 1:
+        amp = jnp.broadcast_to(amp.mean(axis=0, keepdims=True), amp.shape)
+    return jnp.maximum(d + amp * field, 0.0)
+
+
+def burn_stage(
+    d: Array, bundle: dict, cfg: RenderConfig, ref_hw=None, row_offset=None
+) -> Array:
+    return burn_ops.burn(
+        d, bundle["d_ref_green"], bundle["highlight_burn"], cfg.burn_scale,
+        ref_hw=ref_hw, row_offset=row_offset,
+    )
+
+
 def render_chain(
     xyz: Array,
     bundle: dict,
@@ -207,227 +282,44 @@ def render_chain(
     highlight-burn blur factor to the GLOBAL frame size so shards match
     the single-device factor (parallel/mesh.py halo path).
     ``input_is_exposure``: the input already IS the chain's exposure image
-    (max(m_in @ xyz, 0) — the fused-demosaic path computes it as a kernel
-    epilogue); skip chroma NR and the input transform."""
+    (max(m_in @ xyz, 0) — the fused-demosaic path computes it inside the
+    demosaic pass); skip chroma NR and the input transform.
+
+    Each stage runs under a ``jax.named_scope`` of its name, so a profiler
+    trace attributes device time to it."""
     if input_is_exposure:
         ep = _planes(xyz)
     else:
-        img = xyz
-        if cfg.chroma_nr:
-            img = nr_ops.chroma_nr(img, cfg.chroma_nr)
-
-        # Input transform: WB CAT + layer exposure matrix (+2^exp_comp
-        # folded in).
-        ep = tuple(
-            jnp.maximum(q, 0.0) for q in _matp(bundle["m_in"], _planes(img))
-        )
-
-    d = None
+        with jax.named_scope("exposure"):
+            ep = exposure_stage(xyz, bundle, cfg)
     if cfg.halation:
-        g = bundle["hal_green"]
-        factors = bundle["hal_intensity"] * (
-            jnp.stack([jnp.ones_like(g), g, jnp.zeros_like(g)])
-            if not cfg.bw
-            else jnp.stack([g, g, g])
-        )
-        # Mega path: ranks + pyramid upsample + combine in one pallas kernel
-        # (the glow never touches HBM) — and with identity color masking
-        # (the default), development rides the same kernel so the exposure
-        # image never touches HBM either. Fallback: blur on the stacked
-        # image with the normalize-combine in planes so it fuses into the
-        # develop section's elementwise pass.
-        devvec = None
-        if cfg.mask_identity:
-            devvec = jnp.concatenate(
-                [jnp.reshape(bundle["flare"], (1,))]
-                + [jnp.reshape(c, (3,)) for c in bundle["neg_curve"]]
-            )
-        combined = (
-            hal_ops.halation_combined_fused(
-                jnp.stack(ep), cfg.scale, cfg.halation_size, factors,
-                develop=devvec, conservative=cfg.conservative_tiles,
-            )
-            if cfg.fusion
-            else None
-        )
-        if combined is not None:
-            if devvec is not None:
-                d = combined  # developed in-kernel
-            else:
-                ep = _planes(combined)
-        else:
-            blur = hal_ops.halation_blur(jnp.stack(ep), cfg.scale, cfg.halation_size)
-            ep = tuple(
-                (ep[c] + factors[c] * blur[c]) / (1.0 + factors[c]) for c in range(3)
-            )
-
-    if d is None:
-        # Development: log exposure -> status densities (+ masking coupling).
-        xp = tuple(
-            fm.log10(jnp.maximum(ep[c] + bundle["flare"], LOG10_EPS))
-            for c in range(3)
-        )
-        dm = jnp.reshape(bundle["d_min"], (3, -1))
-        dp = tuple(
-            _hd_plane(xp[c], bundle["neg_curve"], c) - dm[c, 0] for c in range(3)
-        )
-        dp = tuple(
-            q + dm[c, 0] for c, q in enumerate(_matp(bundle["mask"], dp))
-        )
-        d = jnp.stack(dp)
-
-    mtf_on = cfg.sharpness and cfg.has_mtf and cfg.mtf_key is not None
-    grain_on = bool(cfg.grain and cfg.has_grain)
-
-    grain_prm = None
-    if grain_on:
-        peak, width, floor, d_lo, d_hi = (
-            bundle["grain_shape"][0],
-            bundle["grain_shape"][1],
-            bundle["grain_shape"][2],
-            bundle["grain_shape"][3],
-            bundle["grain_shape"][4],
-        )
-        rng = jnp.maximum(d_hi - d_lo, 1e-3)
-        pixel_um = 1000.0 / cfg.scale
-        rms_eff = (bundle["grain_rms"] / 1000.0) * (48.0 / pixel_um)
-        grain_prm = (
-            rms_eff,
-            floor,
-            peak / rng * 0.5,
-            1.0 / (width * 0.35),
-            d_lo,
-            1.0 / rng,
-        )
-
-    from raw2film_tpu.ops.conv import _use_pallas
-
-    from raw2film_tpu.ops.pallas_grain import seed2 as _seed2
-
-    if mtf_on and grain_on and cfg.grain == 2 and cfg.fusion and _use_pallas():
-        # Mega-fusion: MTF conv + grain epilogue in ONE pallas kernel — the
-        # density-domain image makes one HBM round trip for both stages.
-        seed = _seed2(
-            (noise_key[0] ^ noise_key[1]).astype(jnp.uint32), grain_row_offset
-        )
-        fused = mtf_ops.film_sharpness_grain_from_key(
-            d, cfg.mtf_key, cfg.scale,
-            cfg.sharpening_strength, cfg.sharpening_sigma,
-            seed,
-            grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma),
-            jnp.stack([jnp.asarray(p, jnp.float32).reshape(()) for p in grain_prm]),
-            conservative=cfg.conservative_tiles,
-            signed=cfg.mtf_signed,
-        )
-        if fused is not None:
-            d = fused
-            mtf_on = grain_on = False
-
-    if mtf_on:
-        d = mtf_ops.film_sharpness_from_key(
-            d, cfg.mtf_key, cfg.scale, cfg.sharpening_strength,
-            cfg.sharpening_sigma, signed=cfg.mtf_signed,
-            conservative=cfg.conservative_tiles, fusion=cfg.fusion,
-        )
-
-    if grain_on:
-        if cfg.grain in (1, 2) and _use_pallas():
-            # Fully fused: hash noise + correlation + amplitude + add in one
-            # streaming pass (ops/pallas_grain.py). grain==1 shares one field
-            # across channels with the channel-mean amplitude.
-            from raw2film_tpu.ops.pallas_grain import (
-                grain_apply_bw_pallas,
-                grain_apply_pallas,
-            )
-
-            seed = _seed2(
-                (noise_key[0] ^ noise_key[1]).astype(jnp.uint32),
-                grain_row_offset,
-            )
-            apply_fn = grain_apply_pallas if cfg.grain == 2 else grain_apply_bw_pallas
-            d = apply_fn(
-                d,
-                seed,
-                grain_ops.correlation_sigma_px(cfg.scale, cfg.grain_size_mm, cfg.grain_sigma),
-                *grain_prm,
-            )
-        else:
-            field = grain_ops.generate_grain_field(
-                noise_key,
-                d.shape[-2:],
-                cfg.scale,
-                cfg.grain_size_mm,
-                cfg.grain_sigma,
-                bw=cfg.grain == 1,
-                row_offset=grain_row_offset,
-            )
-            # KEEP IN SYNC: this amplitude curve also lives in
-            # ops/grain.py::grain_amplitude_device (scale-unfolded form)
-            # and ops/pallas_grain.py (in-kernel form); all three are
-            # pinned against the float64 oracle (CPU suite drives this
-            # branch, device suite the Pallas one), so a lone edit here
-            # fails those pins rather than desyncing silently.
-            t = (d - d_lo) / rng
-            shape = floor + (1 - floor) * fm.expe(
-                -0.5 * ((t - peak / rng * 0.5 - 0.25) / (width * 0.35)) ** 2
-            )
-            amp = rms_eff * shape
-            if cfg.grain == 1:
-                amp = jnp.broadcast_to(amp.mean(axis=0, keepdims=True), amp.shape)
-            d = jnp.maximum(d + amp * field, 0.0)
-
-    # Tail: [highlight burn] -> print/inversion/direct -> encode -> uint8.
-    # Preferred: ONE streaming Pallas pass (ops/pallas_print.py) — the burn
-    # glow rides in as a low-res map + bilinear matrices (the full-res glow
-    # never touches HBM), the density image is read once, and only the uint8
-    # leaves. Fallbacks: staged burn() + the XLA planes tail.
-    tail_pallas = cfg.fusion and not cfg.icc and _use_pallas()
-    # Row-sharded renders (burn_ref_hw set) align the burn's low-res grid to
-    # the GLOBAL frame via the shard's global row offset — same value the
-    # grain hash uses — so seams carry no one-cell glow misalignment.
-    burn_row = grain_row_offset if burn_ref_hw is not None else None
-    burn_args = None
+        with jax.named_scope("halation"):
+            ep = halation_stage(ep, bundle, cfg)
+    with jax.named_scope("develop"):
+        d = develop_stage(ep, bundle)
+    if cfg.sharpness and cfg.has_mtf and cfg.mtf_key is not None:
+        with jax.named_scope("mtf"):
+            d = sharpness_stage(d, cfg)
+    if cfg.grain and cfg.has_grain:
+        with jax.named_scope("grain"):
+            d = grain_stage(d, bundle, cfg, noise_key, grain_row_offset)
     if cfg.highlight_burn:
-        if tail_pallas:
-            burn_args = burn_ops.burn_smallmap(
-                d, bundle["d_ref_green"], cfg.burn_scale, ref_hw=burn_ref_hw,
-                row_offset=burn_row,
+        # Row-sharded renders (burn_ref_hw set) align the burn's low-res
+        # grid to the GLOBAL frame via the shard's global row offset — the
+        # same value the grain hash uses — so seams carry no one-cell glow
+        # misalignment.
+        with jax.named_scope("burn"):
+            d = burn_stage(
+                d, bundle, cfg, burn_ref_hw,
+                grain_row_offset if burn_ref_hw is not None else None,
             )
-        if burn_args is None:
-            d = burn_ops.burn(
-                d, bundle["d_ref_green"], bundle["highlight_burn"],
-                cfg.burn_scale, ref_hw=burn_ref_hw, row_offset=burn_row,
-            )
-    if tail_pallas:
-        from raw2film_tpu.ops.pallas_print import (
-            pack_print_vec,
-            print_encode_pallas,
-        )
-
-        out = print_encode_pallas(
-            d,
-            pack_print_vec(bundle),
-            cfg.print_mode,
-            cfg.shadow_comp,
-            cfg.sat_neutral,
-            cfg.gamma_func,
-            quantize=cfg.quantize,
-            burn=burn_args,
-        )
-        if out is not None:
-            return out
-        if burn_args is not None:
-            # Tail kernel declined the shape after all: run the staged burn.
-            d = burn_ops.burn(
-                d, bundle["d_ref_green"], bundle["highlight_burn"],
-                cfg.burn_scale, ref_hw=burn_ref_hw, row_offset=burn_row,
-            )
-    return _print_tail(d, bundle, cfg)
+    with jax.named_scope("print_tail"):
+        return _print_tail(d, bundle, cfg)
 
 
 def _print_tail(d: Array, bundle: dict, cfg: RenderConfig) -> Array:
-    """The XLA planes formulation of the chain tail (also the reference
-    implementation the Pallas tail kernel is tested against)."""
+    """The chain tail in planes: print/inversion/direct -> display encode
+    -> [ICC LUT] -> uint8."""
     dp = _planes(d)
     if cfg.print_mode == "print":
         le0 = jnp.reshape(bundle["log_e0"], (3, -1))
@@ -516,8 +408,7 @@ def render_chain_from_mosaic(
     full film chain, with the 3x3 camera matrix and scalar exposure gain
     folded algebraically into the chain's input-transform matrix
     (m_in' = m_in @ (gain * cam_to_xyz)) — the camera-RGB image never
-    round-trips HBM between decode and render. Measured at 45MP on v5e:
-    37.4 ms vs 44.2 ms for the staged demosaic -> matrix -> chain path.
+    round-trips device memory between decode and render.
 
     The per-stage path (io.raw.decode_raw then render_chain) remains the
     interactive default: its decode result is cached across slider changes.
@@ -547,39 +438,31 @@ def render_chain_from_mosaic(
             (mosaic.astype(jnp.float32) - black) * inv_range, 0.0, 1.0
         )
     b = dict(bundle)
-    # HIGHEST precision on the 3x3 fold: the MXU default rounds matmul
-    # inputs through bf16 (the round-2 fidelity trap — up to 5 8-bit codes
-    # through the chain); a 3x3 at full precision is free.
+    # HIGHEST precision on the 3x3 fold: a default-precision f32 matmul may
+    # round its inputs (TF32), costing 8-bit codes through the chain; a 3x3
+    # at full precision is free.
     b["m_in"] = jnp.matmul(
         bundle["m_in"],
         jnp.asarray(cam_to_xyz, jnp.float32) * exposure_gain,
         precision=jax.lax.Precision.HIGHEST,
     )
-    if cfg.fusion:
-        # Input transform fused as a demosaic-kernel epilogue: the RGB
-        # image never exists in HBM (clip01 -> m_in -> max0 commute with
-        # the static crop below).
+    # Input transform fused into the demosaic pass: the camera-RGB image
+    # never exists in device memory (clip01 -> m_in -> max0 commute with
+    # the static crop below, which keeps an odd-origin aspect crop while
+    # the demosaic sees an even-aligned, Bayer-phase-preserving superset).
+    with jax.named_scope("demosaic"):
         ep = dm.demosaic_exposure(mosaic, pattern, b["m_in"])
-        if crop is not None:
-            y0, x0, ch, cw = crop
-            ep = ep[:, y0 : y0 + ch, x0 : x0 + cw]
-        return render_chain(ep, b, cfg, noise_key, input_is_exposure=True)
-    rgb = jnp.clip(dm.demosaic_mhc(mosaic, pattern), 0.0, 1.0)
     if crop is not None:
-        # Static post-demosaic window: lets callers keep an odd-origin
-        # aspect crop while feeding the demosaic an even-aligned (Bayer
-        # phase preserving) superset.
         y0, x0, ch, cw = crop
-        rgb = rgb[:, y0 : y0 + ch, x0 : x0 + cw]
-    return render_chain(rgb, b, cfg, noise_key)
+        ep = ep[:, y0 : y0 + ch, x0 : x0 + cw]
+    return render_chain(ep, b, cfg, noise_key, input_is_exposure=True)
 
 
 def batch_mosaic_render_fn(cfg: RenderConfig, pattern: str, crop: tuple | None = None):
     """Batched fused-mosaic render: (B, H, W) u16 mosaics + per-image
     camera matrices, exposure gains and (black, inv_range) normalization
     pairs -> (B, 3, H, W) uint8, one device loop (lax.map, like
-    batch_render_fn — the Pallas kernels' block layouts don't admit a
-    vmapped batch dim)."""
+    batch_render_fn: one frame's temporaries live at a time)."""
 
     def fn(mosaics, cams, gains, bundle, keys, norms):
         def one(args):
@@ -627,5 +510,4 @@ def build_render_config(
         gamma_func=str(merged["gamma_func"]),
         mtf_key=mtf_ops._hashable_mtf(neg.mtf) if neg.mtf is not None else None,
         mtf_signed=bool(merged.get("mtf_fidelity", False)),
-        mask_identity=neg.is_bw or float(merged["color_masking"]) == 1.0,
     )

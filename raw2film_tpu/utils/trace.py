@@ -24,14 +24,10 @@ _ENABLED = os.environ.get("RAW2FILM_TRACE", "") not in ("", "0")
 @contextlib.contextmanager
 def stage_timer(name: str):
     """Times a stage; nests a jax.profiler annotation when profiling."""
-    try:
-        import jax.profiler
+    import jax.profiler
 
-        ctx = jax.profiler.TraceAnnotation(name)
-    except Exception:
-        ctx = contextlib.nullcontext()
     t0 = time.perf_counter()
-    with ctx:
+    with jax.profiler.TraceAnnotation(name):
         yield
     dt = time.perf_counter() - t0
     _LOG[name].append(dt)

@@ -537,7 +537,7 @@ input[type=text],input:not([type]){width:100%;background:var(--input);color:var(
 <div id="about" class="overlay" style="inset:22vh 30vw">
  <h3 style="margin-top:0">raw2film-tpu</h3>
  <div id="aboutbody" class="stockmeta" style="font-size:12px;line-height:1.6">loading&hellip;</div>
- <p class="stockmeta">Film-emulation renderer rebuilt TPU-native (jax/XLA/Pallas);
+ <p class="stockmeta">Film-emulation renderer rebuilt on JAX/XLA;
  feature surface follows JanLohse/raw2film.</p>
  <button id="closeabout">close</button>
 </div>

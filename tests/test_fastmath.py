@@ -5,7 +5,7 @@ actually crosses.
 The helpers are exact algebraic rewrites (constant folds, not
 approximations), so the only admissible error is f32 rounding: a few ulps.
 The chain-level guarantee (<=1 u8 code) is pinned elsewhere
-(test_pallas_print.py, goldens); these tests localize a regression to the
+(goldens); these tests localize a regression to the
 specific helper instead of a downstream diff.
 """
 

@@ -355,8 +355,8 @@ class TestResize:
 
 
 def test_demosaic_exposure_fallback_matches_staged():
-    """demosaic_exposure's XLA fallback (pallas off on CPU) must equal
-    clip01(demosaic) -> scalar mul-adds -> max0 exactly."""
+    """demosaic_exposure must equal clip01(demosaic) -> scalar mul-adds ->
+    max0 to f32 ulps."""
     import numpy as np
 
     rng = np.random.default_rng(21)

@@ -202,20 +202,3 @@ class TestSharding:
 
         g.dryrun_multichip(8)
 
-
-class TestForceXla:
-    def test_space_sharded_trace_avoids_pallas(self, monkeypatch):
-        """SPMD can't partition Pallas custom-calls: the space-axis jit must
-        trace the XLA formulations even on a Pallas platform."""
-        from raw2film_tpu.ops import conv as convops
-
-        # Pretend we're on TPU: _use_pallas would return True...
-        class _Dev:
-            platform = "tpu"
-
-        monkeypatch.setattr(convops.jax, "devices", lambda: [_Dev()])
-        assert convops._use_pallas() is True
-        # ...but not inside force_xla().
-        with convops.force_xla():
-            assert convops._use_pallas() is False
-        assert convops._use_pallas() is True

@@ -43,14 +43,14 @@ PUBLIC_MODULES = [
     "raw2film_tpu.ops.chroma_nr",
     "raw2film_tpu.ops.conv",
     "raw2film_tpu.ops.demosaic",
+    "raw2film_tpu.ops.fastmath",
     "raw2film_tpu.ops.grain",
     "raw2film_tpu.ops.halation",
     "raw2film_tpu.ops.histogram",
     "raw2film_tpu.ops.lut",
     "raw2film_tpu.ops.mtf",
-    "raw2film_tpu.ops.pallas_conv2",
-    "raw2film_tpu.ops.pallas_pyramid",
     "raw2film_tpu.ops.resize",
+    "raw2film_tpu.parallel.distributed",
     "raw2film_tpu.parallel.mesh",
     "raw2film_tpu.pipeline.batch",
     "raw2film_tpu.pipeline.canvas",
